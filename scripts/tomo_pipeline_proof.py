@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Survey-scale TOMOGRAPHIC proof through the production CLI pipeline.
 
-The committed out-of-core proofs (``BENCH_oneshot_survey{40,70,100}m.json``)
-drive a single cross-correlation through the library API; real clustering-
+The out-of-core proof (``scripts/survey_proof.py``) drives a single
+cross-correlation through the library API; real clustering-
 redshift production runs the CLI task DAG over TOMOGRAPHIC bins — the
 reference's headline workflow (``yaw_cli``: ingestion -> auto_ref with RR
 -> one cross-correlation per tomographic slice -> estimate -> true n(z);
 /root/reference/src/yaw/cli/tasks.py:8-17). This script proves that shape
-at survey scale on the chip:
+at survey scale on the accelerator:
 
 1. ``prepare``: a deterministic mock (reference 15%, unknown 35% split
    into ``--bins`` tomographic slices by redshift quantile, randoms 50%)
@@ -27,9 +27,9 @@ at survey scale on the chip:
    the combined jackknife errors (error-aware reduced chi^2, the same
    gate as ``scripts/survey_proof.py``).
 
-The JSON record is committed as ``BENCH_oneshot_tomo{N}m.json`` and — via
-the ``BENCH_oneshot_*`` glob — embedded into every bench run's output.
-Run:
+Only the pipeline subprocesses use the accelerator: this parent process
+is pinned to the CPU, since a JAX process reserves most of the card's
+memory. The JSON record goes to ``--out``. Run:
 
     python scripts/tomo_pipeline_proof.py [--rows 30000000] [--bins 4] \
         [--small] [--out BENCH_oneshot_tomo30m.json]
@@ -45,6 +45,7 @@ import resource
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from datetime import datetime
 from pathlib import Path
@@ -52,9 +53,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
+# the pipeline subprocesses get the original platform choice; main()
+# keeps this process off the card
+CHILD_ENV = dict(os.environ)
 
 import numpy as np  # noqa: E402
 
@@ -279,7 +280,7 @@ def run_pipeline(
             str(project), str(setup_path), "--quiet",
         ],
         capture_output=True, text=True, timeout=14400,
-        cwd=REPO,
+        cwd=REPO, env=CHILD_ENV,
     )
     wall = time.perf_counter() - t0
     if result.returncode != 0:
@@ -314,6 +315,7 @@ def load_estimates(project: Path, num_bins: int) -> dict:
 
 
 def main() -> None:
+    os.environ["JAX_PLATFORMS"] = "cpu"
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--rows", type=int, default=30_000_000)
     parser.add_argument("--bins", type=int, default=4)
@@ -321,7 +323,7 @@ def main() -> None:
         "--small", action="store_true",
         help="300k-row smoke test of the full machinery",
     )
-    parser.add_argument("--workdir", default="/tmp/yawt_tomo_proof")
+    parser.add_argument("--workdir", default=os.path.join(tempfile.gettempdir(), "yawt_tomo_proof"))
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     workdir = Path(args.workdir)
@@ -390,7 +392,7 @@ def main() -> None:
     out = args.out or (
         f"BENCH_oneshot_tomo{num_rows // 1_000_000}m.json"
         if not args.small
-        else "/tmp/tomo_proof_small.json"
+        else os.path.join(tempfile.gettempdir(), "tomo_proof_small.json")
     )
     Path(out).write_text(json.dumps(record, indent=1) + "\n")
     log(f"record written: {out}")

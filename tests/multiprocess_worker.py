@@ -5,7 +5,7 @@ Launched as ``python multiprocess_worker.py <mode> <workdir>`` with the
 environment variables set per process (the same launch contract as a real
 pod job). Each process brings up 2 virtual CPU devices, so two workers
 form a 4-device global mesh across process boundaries — cross-process
-collectives run over gloo exactly where a pod would use ICI/DCN.
+collectives run over gloo exactly where a multi-host job would use NCCL.
 
 Not collected by pytest (no ``test_`` prefix); driven by
 ``tests/test_multiprocess.py``.

@@ -1111,6 +1111,7 @@ class TestDirectCounting:
             cum = count_pairs_tiles(
                 ts1, ts2, pairs, edges.direct.combined_table(),
                 backend=backend, direct=edges.direct.spec,
+                interpret=True,
             )
             return edges.direct.counts_to_scales(cum)
         cum = count_pairs_tiles(
@@ -1533,7 +1534,8 @@ class TestPairListMemo:
             ts, ts, linkage, auto=True, bin_max_angles=angles
         )
         first = count_pairs_tiles(
-            ts, ts, pairs, chord2, backend="pallas", mesh="single"
+            ts, ts, pairs, chord2, backend="pallas", mesh="single",
+            interpret=True,
         )
         cached = dict(pairs._device_cache)
         assert any(k[0] == "stacked" for k in cached if isinstance(k, tuple))
@@ -1542,7 +1544,8 @@ class TestPairListMemo:
         )
         assert pairs_again is pairs
         second = count_pairs_tiles(
-            ts, ts, pairs_again, chord2, backend="pallas", mesh="single"
+            ts, ts, pairs_again, chord2, backend="pallas", mesh="single",
+            interpret=True,
         )
         for key, value in cached.items():
             assert pairs._device_cache[key] is value

@@ -378,7 +378,7 @@ def test_sharded_pallas_engine_matches_xla(problem, data_sharding):
     mesh = default_mesh(4)
     sharded = count_pairs_sharded(
         ts1, ts2, pairs, chord2, mesh=mesh,
-        data_sharding=data_sharding, engine="pallas",
+        data_sharding=data_sharding, engine="pallas", interpret=True,
     )
     assert_allclose(sharded, single, rtol=1e-5, atol=1e-2)
 
@@ -415,19 +415,17 @@ class TestAutoMesh:
             assert auto_mesh() is None
         assert "YAWT_NUM_DEVICES" in caplog.text
 
-    def test_pad_chunk_length_odd_chunk_above_segment_bound(self):
-        """Pair lists longer than one Pallas launch must pad to a length
-        divisible by BOTH the XLA chunk size and the segment bound."""
-        from yet_another_wizz_tpu.ops.pallas_paircount import (
-            MAX_PAIRS_PER_CALL,
-        )
+    @pytest.mark.parametrize("chunk", [8, 24, 1000])
+    def test_pad_chunk_length_odd_chunk_above_segment_bound(self, chunk):
+        """Per-device pair lists pad to a chunk multiple for the XLA scan,
+        on the shared bucket grid, whatever the chunk size."""
         from yet_another_wizz_tpu.parallel.sharded import _pad_chunk_length
 
-        for chunk in (8, 24, 1000):
-            length = _pad_chunk_length(MAX_PAIRS_PER_CALL + 1, chunk)
+        for n in (1, 70_000, 200_001):
+            length = _pad_chunk_length(n, chunk)
             assert length % chunk == 0
-            assert length % MAX_PAIRS_PER_CALL == 0
-            assert length >= MAX_PAIRS_PER_CALL + 1
+            assert length >= n
+            assert length <= max(1.25 * n + chunk, 16 * chunk)
 
     def test_bare_engine_call_engages_all_devices(self, problem, monkeypatch):
         """`count_pairs_tiles` without an explicit mesh must route through
@@ -458,7 +456,7 @@ class TestAutoMesh:
 
     def test_measurement_api_engages_all_devices(self, monkeypatch):
         """`crosscorrelate` without a mesh argument engages the automatic
-        device pool (the v5e-8 single-process scenario)."""
+        device pool (the single-process, several-GPU scenario)."""
         import yet_another_wizz_tpu.parallel as parallel
         from yet_another_wizz_tpu import Catalog, Configuration
         from yet_another_wizz_tpu.correlation.measurements import (

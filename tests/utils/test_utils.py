@@ -1,5 +1,6 @@
 import io
 import logging
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -209,7 +210,10 @@ def test_get_options():
 
 
 class TestCompileCache:
-    def test_enables_at_directory(self, tmp_path):
+    """The environment variable names the cache; otherwise it sits at a
+    fixed path in the checkout, so every run can find it again."""
+
+    def test_enables_at_directory(self, tmp_path, monkeypatch):
         import jax
 
         from yet_another_wizz_tpu.utils.compile_cache import (
@@ -218,8 +222,9 @@ class TestCompileCache:
 
         before = jax.config.jax_compilation_cache_dir
         target = tmp_path / "xla_cache"
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
         try:
-            used = enable_persistent_compile_cache(str(target))
+            used = enable_persistent_compile_cache()
             assert used == str(target)
             assert target.is_dir()
             assert jax.config.jax_compilation_cache_dir == str(target)
@@ -227,13 +232,38 @@ class TestCompileCache:
             jax.config.update("jax_compilation_cache_dir", before)
 
     def test_noop_without_directory(self, monkeypatch):
+        """Unset, the cache goes to ``<checkout>/.jax_cache`` and to no
+        temporary, per-process or per-run path."""
+        import jax
+
+        import yet_another_wizz_tpu
         from yet_another_wizz_tpu.utils.compile_cache import (
+            compile_cache_dir,
             enable_persistent_compile_cache,
         )
 
         monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
-        assert enable_persistent_compile_cache(None) is None
+        checkout = Path(yet_another_wizz_tpu.__file__).resolve().parents[1]
+        expected = str(checkout / ".jax_cache")
+        assert compile_cache_dir() == expected
+        assert compile_cache_dir() == expected  # stable between calls
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            assert enable_persistent_compile_cache() == expected
+            assert jax.config.jax_compilation_cache_dir == expected
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
 
+    @pytest.mark.parametrize("value", ["", "/some/where/else"])
+    def test_environment_wins(self, monkeypatch, value):
+        """A set variable is used as it is; an empty one counts as unset."""
+        from yet_another_wizz_tpu.utils.compile_cache import (
+            CHECKOUT_CACHE,
+            compile_cache_dir,
+        )
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", value)
+        assert compile_cache_dir() == (value or str(CHECKOUT_CACHE))
 
 class TestEnvFlag:
     """Boolean env flags (lives here, NOT in test_native.py: env_flag is

@@ -1,4 +1,4 @@
-"""yet_another_wizz_tpu: a TPU-native clustering-redshift framework.
+"""yet_another_wizz_tpu: an accelerator-native clustering-redshift framework.
 
 A from-scratch JAX/XLA/Pallas implementation of the clustering-redshift
 estimation method (Schmidt et al. 2013; van den Busch et al. 2020) with the
@@ -8,11 +8,11 @@ Landy-Szalay estimators, jackknife & bootstrap patch resampling, and n(z)
 recovery.
 
 The compute core replaces the reference's per-patch scipy kd-trees with a
-tiled brute-force pair-count engine designed for the TPU: spatially sorted
-point tiles, chord-distance evaluation on the vector unit with (hi, lo)
-float32 compensated arithmetic, cumulative threshold histograms, and one-hot
-matmul reductions; multi-device execution shards the tile-pair grid over a
-``jax.sharding.Mesh``.
+tiled brute-force pair-count engine that runs on the GPU: spatially sorted
+point tiles, elementwise chord-distance evaluation with (hi, lo) float32
+compensated arithmetic, cumulative threshold histograms and exact per-bin
+reductions (a Pallas kernel or plain XLA); multi-device execution shards
+the tile-pair grid over a ``jax.sharding.Mesh``.
 """
 
 from yet_another_wizz_tpu._version import __version__, __version_tuple__

@@ -1,8 +1,10 @@
 """ctypes bindings for the native tile-packing kernels.
 
-Compiles ``tilepack.cpp`` on first use (cached as ``libtilepack.so`` next
-to the source; rebuilt when the source is newer) and exposes thin numpy
-wrappers. All consumers must degrade gracefully when no compiler is
+Compiles ``tilepack.cpp`` on first use and exposes thin numpy wrappers.
+The library is cached under ``build/`` next to the source, named by the
+SHA-256 of the source, so only a library built from the current source
+is ever loaded: a stale or foreign ``.so`` lying in the tree is ignored.
+All consumers must degrade gracefully when no compiler is
 available — ``NATIVE_ENABLED`` is False then and the numpy fallbacks in
 :mod:`yet_another_wizz_tpu.ops.tiles` take over.
 
@@ -12,6 +14,7 @@ Set ``YAWT_DISABLE_NATIVE=1`` to force the numpy implementations.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
 import subprocess
@@ -44,25 +47,38 @@ __all__ = [
 logger = logging.getLogger(__name__)
 
 _SOURCE = Path(__file__).parent / "tilepack.cpp"
-_LIBRARY = Path(__file__).parent / "libtilepack.so"
+
+
+def library_path(source: Path | None = None) -> Path:
+    """Where the library built from ``source``'s current content lives
+    (default: the package's ``tilepack.cpp``)."""
+    source = source or _SOURCE
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return source.parent / "build" / f"libtilepack-{digest}.so"
+
 
 _lib = None
 NATIVE_ENABLED = False
 
 
-def _build_library() -> bool:
+def _build_library(library: Path) -> bool:
     # -ffp-contract=off pins the no-FMA evaluation the numpy parity
     # tests rely on: gcc's default contracts a*b - c*d into FMA where the
     # ISA has it as baseline (aarch64), perturbing the tile-pair filter
     # bound by ~1 ulp vs numpy's two-op evaluation.
+    # concurrent first uses (test workers) each build to a private name
+    # and publish with an atomic rename
+    staging = library.with_name(f"{library.stem}.{os.getpid()}.tmp")
     command = [
         "g++", "-O3", "-ffp-contract=off", "-fopenmp", "-shared", "-fPIC",
-        str(_SOURCE), "-o", str(_LIBRARY),
+        str(_SOURCE), "-o", str(staging),
     ]
     try:
+        library.parent.mkdir(exist_ok=True)
         subprocess.run(
             command, check=True, capture_output=True, timeout=120
         )
+        os.replace(staging, library)
         return True
     except (OSError, subprocess.SubprocessError) as err:
         logger.warning("building native tilepack library failed: %s", err)
@@ -74,12 +90,10 @@ def _load() -> None:
     if env_flag("YAWT_DISABLE_NATIVE"):
         return
     try:
-        if not _LIBRARY.exists() or (
-            _SOURCE.stat().st_mtime > _LIBRARY.stat().st_mtime
-        ):
-            if not _build_library():
-                return
-        _lib = ctypes.CDLL(str(_LIBRARY))
+        library = library_path()
+        if not library.exists() and not _build_library(library):
+            return
+        _lib = ctypes.CDLL(str(library))
     except OSError as err:
         logger.warning("loading native tilepack library failed: %s", err)
         return

@@ -9,7 +9,7 @@ kmeans); an optional reference-compatible disk cache
 ``Mapping[int, Patch]`` interface; and the tree-building entry point of the
 measurement API.
 
-TPU-first design: the catalog keeps its columns as in-memory numpy arrays
+Device-first design: the catalog keeps its columns as in-memory numpy arrays
 and converts them into padded, Morton-sorted device tiles
 (:class:`~yet_another_wizz_tpu.ops.tiles.TileSet`) on demand — the
 replacement for the reference's per-patch kd-trees. Tile sets are cached

@@ -15,7 +15,6 @@ from pathlib import Path
 from typing import TYPE_CHECKING
 
 import numpy as np
-import yaml
 
 from yet_another_wizz_tpu.coordinates import AngularCoordinates, AngularDistances
 from yet_another_wizz_tpu.datachunk import DataChunk, DataChunkInfo, HandlesDataChunk
@@ -112,10 +111,14 @@ class Metadata:
 
     @classmethod
     def from_file(cls: type[Self], path: Path | str) -> Self:
+        import yaml
+
         with Path(path).open() as f:
             return cls.from_dict(yaml.safe_load(f))
 
     def to_file(self, path: Path | str) -> None:
+        import yaml
+
         with Path(path).open("w") as f:
             yaml.safe_dump(self.to_dict(), f)
 

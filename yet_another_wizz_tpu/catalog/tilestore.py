@@ -13,7 +13,7 @@ cached catalog streams disk -> device with near-zero host repacking.
 This mirrors the reference's binning-fingerprinted tree cache
 (/root/reference/src/yaw/catalog/trees.py:442-447,519-524 — trees are
 cached per patch and invalidated when the binning fingerprint changes),
-generalised to the TPU engine's block tile sets and with multiple
+generalised to the device engine's block tile sets and with multiple
 fingerprints retained (a pipeline interleaving two binnings must not
 thrash).
 

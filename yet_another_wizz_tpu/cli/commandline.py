@@ -127,7 +127,8 @@ def create_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="yaw_cli",
         description=(
-            "yet_another_wizz_tpu: TPU-native clustering redshift pipeline."
+            "yet_another_wizz_tpu: accelerator-native clustering redshift "
+            "pipeline."
         ),
     )
     parser.add_argument(
@@ -192,10 +193,10 @@ def main(args: list[str] | None = None) -> int:
     )
 
     parsed = create_parser().parse_args(args)
-    # honors JAX_COMPILATION_CACHE_DIR; remote TPU compiles cost minutes,
-    # so pipeline reruns should never recompile unchanged programs
+    # JAX_COMPILATION_CACHE_DIR, else <checkout>/.jax_cache: pipeline
+    # reruns should never recompile unchanged programs
     enable_persistent_compile_cache()
-    # multi-host pod launches: one process per host with YAWT_COORDINATOR /
+    # multi-host launches: one process per host with YAWT_COORDINATOR /
     # YAWT_NUM_PROCESSES / YAWT_PROCESS_ID exported (no-op single-host)
     initialize()
     try:

@@ -13,7 +13,6 @@ from __future__ import annotations
 from pathlib import Path
 from typing import TYPE_CHECKING
 
-import yaml
 
 from yet_another_wizz_tpu.config import ConfigError, Configuration
 
@@ -436,10 +435,14 @@ class ProjectConfig:
 
     @classmethod
     def from_file(cls: type[Self], path: Path | str) -> Self:
+        import yaml
+
         with Path(path).open() as f:
             return cls.from_dict(yaml.safe_load(f))
 
     def to_file(self, path: Path | str) -> None:
+        import yaml
+
         with Path(path).open("w") as f:
             yaml.safe_dump(self.to_dict(), f, sort_keys=False)
 

@@ -7,7 +7,7 @@ pairs in radian and for angular separations, with conversions to/from
 
 The functional core (``radec_to_xyz``, ``xyz_to_radec``, ``angle_to_chord``,
 ``chord_to_angle``, ``split_hi_lo``) is exposed at module level because the
-TPU compute path (:mod:`yet_another_wizz_tpu.ops`) consumes raw arrays, not
+device compute path (:mod:`yet_another_wizz_tpu.ops`) consumes raw arrays, not
 container objects. All math is float64 on the host; the device kernels
 receive pre-split (hi, lo) float32 pairs to retain small-angle precision on
 hardware without native float64.

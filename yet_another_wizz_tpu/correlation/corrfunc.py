@@ -18,8 +18,6 @@ import logging
 from abc import abstractmethod
 from typing import TYPE_CHECKING, Generic, TypeVar
 
-import h5py
-
 from yet_another_wizz_tpu.correlation.corrdata import CorrData
 from yet_another_wizz_tpu.correlation.paircounts import (
     BaseNormalisedCounts,
@@ -355,6 +353,8 @@ class ScalarCorrFunc(CorrFunc):
 def load_corrfunc(path: Path | str) -> BaseCorrFunc:
     """Load correlation pair counts from HDF5, dispatching on the stored
     container type (``CorrFunc`` or ``ScalarCorrFunc``)."""
+    import h5py
+
     with h5py.File(str(path), mode="r") as f:
         for cls in (ScalarCorrFunc, CorrFunc):
             try:

@@ -424,11 +424,10 @@ class PatchLinkage:
         binned2: bool | None = None,
         mode: str = "nn",
     ) -> dict:
-        """Work statistics of one count for performance models
-        (bench.py's roofline): ``candidate_pairs`` as in
-        :meth:`num_candidate_pairs`, ``slot_transitions`` (changes of the
-        output slot along the slot-sorted tile-pair list — each flushes
-        the kernel's VMEM accumulator block to HBM) and ``fetch_bytes``
+        """Work statistics of one count for performance models:
+        ``candidate_pairs`` as in :meth:`num_candidate_pairs`,
+        ``slot_transitions`` (changes of the output slot along the
+        slot-sorted tile-pair list) and ``fetch_bytes``
         (the float32 ``(num_slots, B, E)`` result tensor the host fetches
         from the device)."""
         auto = catalog2 is None

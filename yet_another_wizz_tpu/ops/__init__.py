@@ -1,4 +1,4 @@
-"""TPU compute kernels: tiled brute-force pair counting and clustering.
+"""Device compute kernels: tiled brute-force pair counting and clustering.
 
 This package replaces the reference's native compute core (scipy kd-trees,
 treecorr kmeans, scipy ``vq``; see /root/reference/src/yaw/catalog/trees.py
@@ -11,7 +11,7 @@ and catalog.py) with device-native JAX/Pallas implementations:
 - :mod:`thresholds` — per-redshift-bin angular edges and chord-distance
                       threshold tables, including scale (rweight) weighting
 - :mod:`paircount`  — the pair-count engine (XLA reference path and the
-                      Pallas TPU kernel) producing (patch-pair, bin, edge)
+                      Pallas GPU kernel) producing (patch-pair, bin, edge)
                       cumulative count tensors
 - :mod:`kmeans`     — on-device spherical kmeans for patch centers
 - :mod:`cpu_oracle` — float64 scipy kd-tree implementation used for

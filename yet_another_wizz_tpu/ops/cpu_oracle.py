@@ -9,8 +9,8 @@ purposes:
   1e-6 relative target on mock catalogs;
 - performance baseline: a multiprocess run of this implementation stands in
   for the reference package (which depends on astropy, unavailable here)
-  when measuring the TPU speed-up — it uses the identical scipy C++ kernel
-  the reference delegates to.
+  when measuring the device speed-up — it uses the identical scipy C++
+  kernel the reference delegates to.
 """
 
 from __future__ import annotations
@@ -120,6 +120,15 @@ def count_pairs_oracle(
     return np.stack([_slot_counts(task) for task in tasks])
 
 
+def _stay_off_device() -> None:
+    """Worker initializer: the workers import the package (and with it
+    jax) but must never open the accelerator, which belongs to the
+    measuring process."""
+    import os
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+
+
 def count_pairs_oracle_multiprocess(
     xyz1, w1, zbin1, patch1, xyz2, w2, zbin2, patch2, slot_patches, edges,
     *,
@@ -146,7 +155,8 @@ def count_pairs_oracle_multiprocess(
     # prone to deadlocks
     context = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(
-        max_workers=max_workers, mp_context=context
+        max_workers=max_workers, mp_context=context,
+        initializer=_stay_off_device,
     ) as pool:
         results = list(pool.map(_slot_counts, tasks, chunksize=4))
     return np.stack(results)

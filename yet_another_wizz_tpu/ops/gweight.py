@@ -1,13 +1,13 @@
 """Per-pair separation weights for the direct counting mode.
 
 Shared by the XLA path (:mod:`yet_another_wizz_tpu.ops.paircount`) and the
-Pallas TPU kernel (:mod:`yet_another_wizz_tpu.ops.pallas_paircount`): all
+Pallas GPU kernel (:mod:`yet_another_wizz_tpu.ops.pallas_paircount`): all
 operations are elementwise jax.numpy that lowers both in plain XLA and in
-Mosaic. See :class:`yet_another_wizz_tpu.ops.thresholds.DirectEdges` for
+the Pallas Triton route. See :class:`yet_another_wizz_tpu.ops.thresholds.DirectEdges` for
 the table layout and the exact-equivalence argument versus the reference's
 union-edge histogram (/root/reference/src/yaw/catalog/trees.py:84-117).
 
-Cost: one fixed block of VPU passes per tile pair replacing the ~3 passes
+Cost: one fixed block of elementwise passes per tile pair replacing the ~3 passes
 PER SUB-EDGE of cumulative counting. Grids confined to small angles (every
 survey-relevant configuration; gate :data:`THETA_POLY_MAX`) take the cheap
 small-angle path — ``log10(theta)`` straight from the squared chord through
@@ -78,8 +78,9 @@ def _asin_f32(s):
     Small arguments use the classic single-precision minimax polynomial
     (Cephes asinf coefficients, ~1 ulp on [0, 0.5]); larger ones go
     through ``asin(s) = pi/2 - 2 asin(sqrt((1 - s) / 2))``, whose inner
-    argument is again <= 0.5. Written out explicitly because TPU Pallas
-    has no library arcsine.
+    argument is again <= 0.5. Written out explicitly so that every
+    engine evaluates the same polynomial, independent of which arcsine a
+    compiler's math library provides.
     """
     big = s > 0.5
     t = jnp.where(big, jnp.sqrt(jnp.maximum(0.5 * (1.0 - s), 0.0)), s)
@@ -106,8 +107,8 @@ def apply_direct_weight(
 
     Args:
         chord2: ``(T, T)`` squared chord distances.
-        params: ``(T, C)`` per-row parameter block (one-hot selected from
-            the per-bin table; ``C == num_param_cols(...)``).
+        params: the ``C == num_param_cols(...)`` per-row parameter
+            columns, each ``(T, 1)``, selected from the per-bin table.
         weights: ``(T, T)`` effective column weights to scale.
         num_sub / num_below / num_above: static grid configuration, see
             :class:`~yet_another_wizz_tpu.ops.thresholds.DirectEdges`.
@@ -131,10 +132,7 @@ def apply_direct_weight(
     weight value cannot reach any output (see above and
     :data:`THETA_POLY_MAX`).
     """
-    inv_d = params[:, 0:1]
-    lo_scaled = params[:, 1:2]
-    gc0 = params[:, 2:3]
-    gc1 = params[:, 3:4]
+    inv_d, lo_scaled, gc0, gc1 = params[:4]
 
     if small_angle:
         y = 0.25 * chord2
@@ -160,16 +158,12 @@ def apply_direct_weight(
 
     col = 4
     for _ in range(num_below):
-        k = params[:, col : col + 1]
-        thr = params[:, col + 1 : col + 2]
-        value = params[:, col + 2 : col + 3]
+        k, thr, value = params[col : col + 3]
         g = jnp.where((idx == k) & (chord2 <= thr), value, g)
         col += 3
     # ascending above-entries: a pair lands on the highest limit below it
     for _ in range(num_above):
-        k = params[:, col : col + 1]
-        thr = params[:, col + 1 : col + 2]
-        value = params[:, col + 2 : col + 3]
+        k, thr, value = params[col : col + 3]
         g = jnp.where((idx == k) & (chord2 > thr), value, g)
         col += 3
     return weights * g

@@ -12,8 +12,8 @@ problem); the O(N * P) assignment of the full catalog is a device matmul
 argmax. Unlike treecorr (whose centers are non-deterministic, reference
 docs ``concepts.rst:109-111``), results are reproducible for a fixed seed.
 
-Device matmuls use ``Precision.HIGHEST``: the default bfloat16 MXU path
-cannot separate nearby sky positions and collapses clusters.
+Device matmuls use ``Precision.HIGHEST``: a reduced-precision matmul (TF32
+on the GPU) cannot separate nearby sky positions and collapses clusters.
 """
 
 from __future__ import annotations
@@ -145,7 +145,7 @@ def assign_patches(
     product), the analogue of ``scipy.cluster.vq.vq`` on unit vectors.
 
     Small problems run as a host matmul; large catalogs stream through
-    the device in chunks (MXU argmax)."""
+    the device in chunks (matmul argmax)."""
     xyz = np.asarray(xyz)
     if len(xyz) * len(centers) < DEVICE_ASSIGN_THRESHOLD:
         from yet_another_wizz_tpu import _native

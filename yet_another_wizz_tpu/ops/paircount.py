@@ -2,16 +2,16 @@
 
 Replaces the reference's dual-tree kd-tree kernel
 (/root/reference/src/yaw/catalog/trees.py:303-362) with dense tile-pair
-arithmetic designed for the TPU:
+arithmetic:
 
-- for a pair of point tiles, squared chord distances are evaluated on the
-  vector unit from (hi, lo)-split float32 coordinates — the compensated
+- for a pair of point tiles, squared chord distances are evaluated
+  elementwise from (hi, lo)-split float32 coordinates — the compensated
   difference keeps relative precision ~1e-7 even at arcsecond separations,
   far below plain float32 resolution (a plain ``1 - dot`` formulation is
   useless below ~1e-3 rad);
 - pairs are counted cumulatively against per-redshift-bin squared-chord
-  thresholds; the per-row thresholds and the final (bin, edge) reduction
-  are one-hot matmuls, which the MXU executes exactly for 0/1 selectors;
+  thresholds; the per-row thresholds are an exact elementwise select and
+  the final (bin, edge) reduction a ``Precision.HIGHEST`` contraction;
 - per-pair results accumulate into a ``(patch-pair slot, bin, edge)``
   tensor; host-side float64 post-processing converts cumulative edges into
   per-scale counts.
@@ -19,8 +19,8 @@ arithmetic designed for the TPU:
 Two interchangeable execution paths:
 - ``xla``: pure jax.numpy (vmap + scan); runs on any backend and is the
   correctness reference for the Pallas kernel;
-- ``pallas``: the TPU kernel in :mod:`pallas_paircount` with scalar-prefetch
-  driven tile gathering and revisit-accumulated output slots.
+- ``pallas``: the GPU kernel in :mod:`pallas_paircount` (Pallas, Triton
+  route), one program per tile pair and a sorted segment sum into slots.
 """
 
 from __future__ import annotations
@@ -45,12 +45,44 @@ if TYPE_CHECKING:
     from yet_another_wizz_tpu.ops.tiles import TileSet
 
 __all__ = [
+    "CHUNK_SIZE",
     "audit_boundary_counts",
     "count_pairs_tiles",
     "pair_block_counts",
+    "resolve_backend",
 ]
 
 _HIGHEST = jax.lax.Precision.HIGHEST
+
+CHUNK_SIZE = 128
+"""Tile pairs per step of the XLA engine's scan. Each step is a handful of
+kernel launches, so short steps leave the GPU launch-bound: on an H100 at
+the benchmark's 512-point tiles, 128 ran the engine in 30 ms where 16 took
+98 ms and 256 took 62 ms (see PERF.md)."""
+
+
+def resolve_backend(
+    backend: str, interpret: bool = False, direct: tuple | None = None
+) -> str:
+    """The engine that ``backend`` names; ``auto`` picks the faster one.
+
+    ``auto`` takes the Pallas kernel on the GPU in cumulative mode, where
+    it beat the XLA engine on an H100, and the XLA engine otherwise: in
+    the direct separation-weighted mode and on every other backend.
+    ``auto`` never selects an interpreted kernel. An explicit ``pallas``
+    on a backend the kernel cannot compile for raises, unless
+    ``interpret=True`` asks for the Pallas interpreter."""
+    if backend == "auto":
+        gpu = jax.default_backend() == "gpu"
+        return "pallas" if gpu and direct is None else "xla"
+    if backend == "pallas":
+        from yet_another_wizz_tpu.ops.pallas_paircount import (
+            check_kernel_backend,
+        )
+
+        check_kernel_backend(interpret)
+    return backend
+
 
 _table_cache: dict[tuple, jnp.ndarray] = {}
 
@@ -127,9 +159,8 @@ def pair_block_counts(
         w_cols_eff = jnp.broadcast_to(w_cols, chord2.shape)
 
     # one-hot of the row bin index; threshold rows are selected with exact
-    # elementwise arithmetic — NOT a matmul: the default matmul precision on
-    # TPU (and some CPU paths) rounds operands to bfloat16, which would move
-    # the bin boundaries by up to 0.4%
+    # elementwise arithmetic — NOT a matmul: a reduced-precision matmul
+    # (TF32 on the GPU, bfloat16 elsewhere) would move the bin boundaries
     z_rows = tile1[:, 7:8]
     bin_ids = jnp.arange(num_bins, dtype=jnp.float32)[None, :]
     onehot = (z_rows == bin_ids).astype(jnp.float32)  # (T, B)
@@ -141,8 +172,12 @@ def pair_block_counts(
     if direct is not None:
         from yet_another_wizz_tpu.ops.gweight import apply_direct_weight
 
+        params = [
+            selected[:, col : col + 1]
+            for col in range(num_edges, num_cols_total)
+        ]
         w_cols_eff = apply_direct_weight(
-            chord2, selected[:, num_edges:], w_cols_eff,
+            chord2, params, w_cols_eff,
             num_sub=direct[0], num_below=direct[1], num_above=direct[2],
             small_angle=len(direct) > 3 and direct[3],
         )
@@ -216,8 +251,8 @@ def scan_scatter_counts(
     body, so an engine change cannot silently desynchronise the two.
 
     ``axis_name`` marks the accumulator as device-varying over the named
-    shard_map axis (jax >= 0.8 tracks varying-ness through the scan
-    carry); single-device callers leave it None."""
+    shard_map axis (jax tracks varying-ness through the scan carry);
+    single-device callers leave it None."""
     num_chunks = tile1.shape[0] // chunk_size
     shape = (num_chunks, chunk_size)
 
@@ -242,10 +277,7 @@ def scan_scatter_counts(
     if axis_name is not None:
         # the carry must carry the same device-varying type as the
         # sharded chunk data it accumulates
-        if hasattr(jax.lax, "pcast"):
-            init = jax.lax.pcast(init, to="varying", axis_name=axis_name)
-        else:  # pragma: no cover - older jax
-            init = jax.lax.pvary(init, axis_name)
+        init = jax.lax.pcast(init, to="varying", axis_name=axis_name)
     acc, _ = jax.lax.scan(
         body,
         init,
@@ -356,7 +388,8 @@ AUDIT_RESIDENT_BYTES = 2 << 30
 """Combined lane bytes above which the audit's flag pass streams
 host-gathered pair windows instead of placing both FULL tile sets on one
 device — a count run with columns/ring sharding precisely because the
-catalog exceeds one chip's HBM must not have its audit OOM that chip."""
+catalog exceeds one device's memory must not have its audit run out of
+memory on that device."""
 
 
 def audit_boundary_counts(
@@ -368,7 +401,7 @@ def audit_boundary_counts(
     edges_radian: NDArray,
     *,
     rel_band: float = 1e-6,
-    chunk_size: int = 16,
+    chunk_size: int = CHUNK_SIZE,
 ) -> tuple[NDArray, int]:
     """Exact-boundary audit: certify or repair float32 edge classification.
 
@@ -412,7 +445,7 @@ def audit_boundary_counts(
 
     num_pairs = pairs.num_pairs
     padded = bucket_size(
-        num_pairs, base=16 * chunk_size, multiple_of=chunk_size
+        num_pairs, base=chunk_size, multiple_of=chunk_size
     )
     tile1 = np.zeros(padded, dtype=np.int32)
     tile2 = np.zeros(padded, dtype=np.int32)
@@ -519,7 +552,7 @@ def count_pairs_tiles(
     chord2_table: NDArray,
     *,
     backend: str = "auto",
-    chunk_size: int = 16,
+    chunk_size: int = CHUNK_SIZE,
     edges_radian: NDArray | None = None,
     audit: bool = False,
     mesh=None,
@@ -527,6 +560,7 @@ def count_pairs_tiles(
     defer: bool = False,
     direct: tuple | None = None,
     padded_slots: bool = False,
+    interpret: bool = False,
 ) -> NDArray:
     """Run the pair-count engine over a tile-pair list.
 
@@ -538,9 +572,11 @@ def count_pairs_tiles(
     and post-process on the host (ignored for the oracle backend, when
     ``audit`` is active, and in multi-process mesh jobs).
 
-    Backends: ``pallas`` (TPU kernel), ``xla`` (portable jax.numpy path),
+    Backends: ``pallas`` (the GPU kernel; ``interpret=True`` runs it in
+    the Pallas interpreter, for tests), ``xla`` (portable jax.numpy path),
     ``oracle`` (float64 scipy kd-trees on the host, requires
-    ``edges_radian``; used for validation), or ``auto``.
+    ``edges_radian``; used for validation), or ``auto``
+    (:func:`resolve_backend`).
 
     With ``mesh`` (a :class:`jax.sharding.Mesh`) the engine runs sharded
     over the mesh devices with the given ``data_sharding`` layout
@@ -548,7 +584,8 @@ def count_pairs_tiles(
     :func:`yet_another_wizz_tpu.parallel.count_pairs_sharded`). With
     ``mesh=None`` (the default) the device pool is detected
     automatically (:func:`yet_another_wizz_tpu.parallel.auto_mesh`: all
-    local chips of a single-process job, the global mesh of a pod job);
+    local devices of a single-process job, the global mesh of a
+    multi-process job);
     ``mesh="single"`` pins plain single-device execution.
 
     With ``audit=True`` (requires ``edges_radian``) the result passes
@@ -568,8 +605,8 @@ def count_pairs_tiles(
     the slot axis of the returned device array keeps the engine's
     BUCKETED padding instead of being sliced to ``num_slots``: jitted
     consumers (the blocked loop's on-device scale reduction) then compile
-    once per bucket, and rows ``>= num_slots`` (dump slot, padding,
-    potentially uninitialised scratch) must be masked out by the caller.
+    once per bucket, and rows ``>= num_slots`` (the dump slot's padding
+    counts) must be masked out by the caller.
     """
     if audit and edges_radian is None:
         raise ValueError("audit=True requires 'edges_radian'")
@@ -597,8 +634,7 @@ def count_pairs_tiles(
         rows = bucket_size(num_slots + 1, base=64) if padded_slots else num_slots
         return np.zeros((rows, table.shape[0], width), dtype=np.float64)
 
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
+    backend = resolve_backend(backend, interpret, direct)
 
     if mesh == "single":
         # explicit single-device pin (e.g. the pipeline's
@@ -607,8 +643,8 @@ def count_pairs_tiles(
     elif mesh is None and backend != "oracle":
         # automatic device pool: a multi-host pod job gets the global
         # mesh (all processes were launched to participate); a
-        # single-process job with several local chips gets a local mesh
-        # so e.g. a v5e-8 engages all 8 chips by default — the analogue
+        # single-process job with several local devices gets a local mesh
+        # so e.g. a four-GPU host engages all four by default — the analogue
         # of the reference auto-detecting its full worker pool
         # (/root/reference/src/yaw/utils/parallel.py:53-85). Returns
         # None (plain single-device execution) when there is nothing to
@@ -629,7 +665,8 @@ def count_pairs_tiles(
         result = count_pairs_sharded(
             tiles1, tiles2, pairs, table,
             mesh=mesh, data_sharding=data_sharding, engine=backend,
-            defer=defer and not audit, direct=direct,
+            chunk_size=chunk_size, defer=defer and not audit, direct=direct,
+            interpret=interpret,
         )
         if not isinstance(result, np.ndarray):
             if defer and not audit:
@@ -658,6 +695,7 @@ def count_pairs_tiles(
             pairs,
             table,
             cols_binned=cols_binned,
+            interpret=interpret,
             direct=direct,
             padded_slots=padded_slots,
         )
@@ -669,7 +707,7 @@ def count_pairs_tiles(
         num_pairs = pairs.num_pairs
         num_slots_out = bucket_size(num_slots + 1, base=64)
         padded = bucket_size(
-            num_pairs, base=16 * chunk_size, multiple_of=chunk_size
+            num_pairs, base=chunk_size, multiple_of=chunk_size
         )
         tile1 = np.zeros(padded, dtype=np.int32)
         tile2 = np.zeros(padded, dtype=np.int32)

@@ -40,7 +40,7 @@ DIRECT_CROSSOVER = 12
 from cumulative per-edge passes to the direct per-pair-weight formulation
 (the analogue of the reference's cumulative-vs-binned heuristic at 8
 angular bins, /root/reference/src/yaw/catalog/trees.py:341). The device
-cost of cumulative counting is ~3 VPU passes per edge, the direct mode
+cost of cumulative counting is ~3 elementwise passes per edge, the direct mode
 replaces all sub-edge passes with a fixed ~15-pass log/exp block, so the
 crossover sits where ``3 * (E_union - E_scale)`` exceeds that block."""
 
@@ -113,7 +113,7 @@ class DirectEdges:
     """Device tables for the direct separation-weighted counting mode.
 
     Instead of counting cumulatively at every union edge (scale limits
-    plus ``resolution`` log sub-edges — O(E) VPU passes per tile pair),
+    plus ``resolution`` log sub-edges — O(E) elementwise passes per tile pair),
     the kernel computes each pair's sub-interval index in O(1) from the
     uniform log grid, applies the normalised per-interval weight
     ``theta_mid^alpha / norm`` as a multiplicative pair weight, and counts

@@ -1,9 +1,9 @@
 """Multi-device execution: mesh construction and sharded pair counting.
 
 The reference scales out with an MPI task farm over patch pairs
-(/root/reference/src/yaw/utils/parallel.py:38-484). The TPU-native
-replacement shards the flat tile-pair list over a ``jax.sharding.Mesh``
-(ICI domain): every device runs the same pair-count program on its chunk
+(/root/reference/src/yaw/utils/parallel.py:38-484). The device-native
+replacement shards the flat tile-pair list over a ``jax.sharding.Mesh``:
+every device runs the same pair-count program on its chunk
 of the list and partial count tensors are combined with ``psum``. Host
 coordination (process-0 I/O, result broadcast) follows jax.distributed
 conventions.

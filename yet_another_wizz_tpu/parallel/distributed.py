@@ -133,7 +133,7 @@ def initialize(
             return
         # launched under mpirun/mpiexec/srun with no explicit wiring:
         # delegate to jax.distributed's cluster auto-detection (Open
-        # MPI ORTE URI, Slurm, GKE/GCE TPU pods), which derives the
+        # MPI ORTE URI, Slurm), which derives the
         # coordinator address from the launcher environment — the
         # auto-detection the reference gets from mpi4py
         autodetect = True
@@ -142,8 +142,8 @@ def initialize(
 
     try:
         # cross-process collectives on the CPU backend require gloo; must
-        # be configured before the backend initialises (no-op on TPU pods,
-        # harmless if the backend is already up)
+        # be configured before the backend initialises (no-op on GPU
+        # hosts, harmless if the backend is already up)
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:  # pragma: no cover - option absent in older jax
         pass

@@ -4,21 +4,21 @@ Design (see SURVEY.md section 2.2): the unit of distribution is the flat,
 slot-sorted tile-pair list from
 :func:`yet_another_wizz_tpu.ops.linkage.build_tile_pairs`. Each device
 receives an equal, contiguous chunk (padded with dump-slot entries),
-evaluates the same per-device pair-count program as single-chip execution
-(the Pallas kernel on TPU, the portable vmap+scan XLA program elsewhere)
-into its private ``(num_slots + 1, B, E)`` partial tensor, and
+evaluates the same per-device pair-count engine as single-device
+execution into its private ``(num_slots + 1, B, E)`` partial tensor, and
 the partials are summed with ``psum`` over the mesh. Three catalog layouts
 are implemented (``data_sharding=``): ``replicated`` tiles on every device,
 ``columns`` with the column catalog sharded 1/N, and ``ring`` with both
-catalogs sharded 1/N and the row shard rotating over ICI via ``ppermute``.
+catalogs sharded 1/N and the row shard rotating between devices via
+``ppermute``.
 
 Multi-host pods: when more than one jax process participates
 (``jax.process_count() > 1`` after
 :func:`yet_another_wizz_tpu.parallel.initialize`), the same code runs over
 the global device mesh — every process prepares the identical host-side
 pair list deterministically and contributes the shards of its addressable
-devices (``jax.make_array_from_callback``); the ``psum`` then rides
-ICI/DCN across hosts.
+devices (``jax.make_array_from_callback``); the ``psum`` then crosses
+hosts.
 """
 
 from __future__ import annotations
@@ -76,8 +76,8 @@ def auto_mesh() -> Mesh | None:
     Mirrors the reference, which automatically spreads over its full
     local worker pool (physical cores or ``YAW_NUM_THREADS``,
     /root/reference/src/yaw/utils/parallel.py:53-85): here the pool is
-    the local accelerator chips, so a single-process job on a v5e-8 uses
-    all 8 chips by default instead of one.
+    the local accelerators, so a single-process job on a four-GPU host
+    uses all four by default instead of one.
 
     Returns ``None`` (single-device execution) when only one device is
     available or ``YAWT_NUM_DEVICES=1``. Multi-process pod jobs always
@@ -115,7 +115,7 @@ def auto_mesh() -> Mesh | None:
     if num_devices is not None:
         num_devices = min(num_devices, available)
         if num_devices <= 1:
-            # e.g. YAWT_NUM_DEVICES=8 on a one-chip host: a 1-device
+            # e.g. YAWT_NUM_DEVICES=8 on a one-device host: a 1-device
             # mesh would pay shard_map/psum overhead for no parallelism
             return None
     elif available <= 1:
@@ -165,25 +165,8 @@ def _fetch_replicated(result) -> np.ndarray:
 
 def _pad_chunk_length(n: int, chunk_size: int) -> int:
     """Common padded per-device pair-list length for both engines:
-    bucketed for compile reuse, a chunk multiple for the XLA scan, and a
-    multiple of the Pallas segment bound when it exceeds one launch."""
-    from yet_another_wizz_tpu.ops.pallas_paircount import MAX_PAIRS_PER_CALL
-
-    length = bucket_size(
-        n, base=16 * chunk_size, multiple_of=chunk_size
-    )
-    if length > MAX_PAIRS_PER_CALL:
-        # the padded length must stay a chunk_size multiple for the XLA
-        # scan's reshape AND become a segment-bound multiple for the
-        # multi-launch Pallas path: round to the lcm (equal to
-        # MAX_PAIRS_PER_CALL, a power of two, whenever chunk_size is one
-        # too; the odd part of an unusual chunk_size inflates the step,
-        # which only costs padding)
-        import math
-
-        step = math.lcm(chunk_size, MAX_PAIRS_PER_CALL)
-        length = -(-length // step) * step
-    return length
+    bucketed for compile reuse and a chunk multiple for the XLA scan."""
+    return bucket_size(n, base=chunk_size, multiple_of=chunk_size)
 
 
 def _partial_counts(
@@ -198,31 +181,23 @@ def _partial_counts(
 ):
     """Per-device counts over the local chunk of the pair list.
 
-    ``engine="pallas"`` runs the TPU kernel of
+    ``engine="pallas"`` runs the GPU kernel of
     :mod:`yet_another_wizz_tpu.ops.pallas_paircount` on the shard (the
-    same code path as single-chip execution, VMEM revisit accumulation
-    included); ``engine="xla"`` scatter-adds through the portable
-    vmap+scan program. The output slot axis is padded to
-    ``num_slots_out`` (bucketed) so the compiled program is reused across
-    patch linkages; dump/pad slots are sliced off by the caller."""
+    same code path as single-device execution); ``engine="xla"``
+    scatter-adds through the portable vmap+scan program. The output slot
+    axis is padded to ``num_slots_out`` (bucketed) so the compiled
+    program is reused across patch linkages; dump/pad slots are sliced
+    off by the caller."""
     if engine == "pallas":
         from yet_another_wizz_tpu.ops.pallas_paircount import (
-            MAX_PAIRS_PER_CALL,
             pallas_partial_counts,
         )
 
-        n = tile1.shape[0]
-        segment = min(n, MAX_PAIRS_PER_CALL)
-        # every device sees only its chunk: masking is required even for
-        # a single launch, or the psum would add garbage rows of slots
-        # this device never visited into other devices' real counts
         return pallas_partial_counts(
             lane1, lane2, tile1, tile2, slots, table,
             num_slots_out=num_slots_out,
             cols_binned=cols_binned,
             interpret=interpret,
-            segment=segment,
-            mask_always=True,
             direct=direct,
         )
     return _partial_counts_xla(
@@ -260,18 +235,20 @@ def count_pairs_sharded(
     chord2_table: NDArray,
     *,
     mesh: Mesh | None = None,
-    chunk_size: int = 8,
+    chunk_size: int | None = None,
     data_sharding: str = "replicated",
     engine: str = "auto",
     defer: bool = False,
     direct: tuple | None = None,
+    interpret: bool = False,
 ) -> NDArray:
     """Multi-device pair counting over a mesh; same result contract as
     :func:`yet_another_wizz_tpu.ops.paircount.count_pairs_tiles`.
 
     ``engine`` selects the per-device compute program: ``pallas`` (the
-    TPU kernel, default on TPU backends), ``xla`` (portable vmap+scan
-    scatter-add, default elsewhere), or ``auto``.
+    GPU kernel; ``interpret=True`` runs it in the Pallas interpreter),
+    ``xla`` (portable vmap+scan scatter-add), or ``auto`` (see
+    :func:`yet_another_wizz_tpu.ops.paircount.resolve_backend`).
 
     With ``defer=True`` (single-process jobs only) the replicated device
     result is returned WITHOUT fetching it, so queued follow-up counts
@@ -289,31 +266,23 @@ def count_pairs_sharded(
       much larger) column side scales as 1/num_devices; the natural
       layout for randoms catalogs on pods.
     - ``"ring"``: BOTH catalogs sharded 1/num_devices. Column shards stay
-      pinned; the row shard rotates one hop around the ICI ring per step
+      pinned; the row shard rotates one hop around the device ring per step
       (``ppermute``), so after num_devices steps every (row shard, column
       shard) combination has met exactly once on some device. The compute
       of step s+1 overlaps the ring transfer of step s in XLA's schedule;
       per-device memory for both catalogs scales as 1/num_devices — the
-      layout for survey-scale inputs that fit on no single chip.
+      layout for survey-scale inputs that fit on no single device.
     """
     mesh = mesh or default_mesh()
     num_devices = mesh.devices.size
     num_slots = pairs.num_slots
     num_slots_out = bucket_size(num_slots + 1, base=64)
     cols_binned = tiles2.binned
-    # chunk_size is a perf knob (the XLA scan's step width); normalising
-    # it to a power of two (capped at the Pallas segment bound) keeps
-    # the padded pair-list step at MAX_PAIRS_PER_CALL — an odd chunk
-    # size would otherwise multiply the lcm padding step by its odd part
-    # (e.g. chunk_size=1000 -> 8.2M-slot padding cliff)
-    from yet_another_wizz_tpu.ops.pallas_paircount import MAX_PAIRS_PER_CALL
+    from yet_another_wizz_tpu.ops.paircount import CHUNK_SIZE, resolve_backend
 
-    chunk_size = min(
-        1 << max(0, int(chunk_size) - 1).bit_length(), MAX_PAIRS_PER_CALL
-    )
-    if engine == "auto":
-        engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-    interpret = jax.default_backend() != "tpu"
+    chunk_size = chunk_size or CHUNK_SIZE
+
+    engine = resolve_backend(engine, interpret, direct)
 
     table = jnp.asarray(chord2_table, dtype=jnp.float32)
     if pairs.num_pairs == 0:
@@ -347,7 +316,7 @@ def count_pairs_sharded(
         counts = np.bincount(owner, minlength=num_devices)
         longest = _pad_chunk_length(int(counts.max()), chunk_size)
 
-        tile1 = np.zeros(num_devices * longest, dtype=np.int32)
+        tile1 = np.full(num_devices * longest, -1, dtype=np.int32)
         tile2 = np.zeros(num_devices * longest, dtype=np.int32)
         slots = np.full(num_devices * longest, num_slots, dtype=np.int32)
         bounds = np.concatenate([[0], np.cumsum(counts)])
@@ -360,7 +329,8 @@ def count_pairs_sharded(
                 pairs.tile2[sel] - device * logical
             )
             slots[base : base + len(sel)] = pairs.slot[sel]
-        # padding entries index tile 0 of the local shard
+        # padding entries index row tile -1 (skipped by the kernel; the
+        # XLA engine wraps it to a real tile) and the dump slot
 
         lane1 = _place_lanes(tiles1.host_lanes(), replicated)
         lane2 = _place_lanes(lane2_host, sharded)
@@ -379,7 +349,7 @@ def count_pairs_sharded(
             -(-pairs.num_pairs // num_devices), chunk_size
         )
         padded = num_devices * per_device
-        tile1 = np.zeros(padded, dtype=np.int32)
+        tile1 = np.full(padded, -1, dtype=np.int32)
         tile2 = np.zeros(padded, dtype=np.int32)
         slots = np.full(padded, num_slots, dtype=np.int32)
         tile1[: pairs.num_pairs] = pairs.tile1
@@ -426,7 +396,7 @@ def _sharded_counts_fn(
     """Build (and cache) the jitted shard_map program for one sharded
     configuration: a fresh closure per call would miss jax's trace cache
     and pay a full retrace/compile for every count of every measurement
-    (remote compiles cost minutes at survey scale)."""
+    (compiles cost seconds to minutes at survey scale)."""
     lane2_spec = P(MESH_AXIS) if lane2_sharded else P()
 
     @jax.jit
@@ -437,10 +407,8 @@ def _sharded_counts_fn(
             P(), lane2_spec, P(MESH_AXIS), P(MESH_AXIS), P(MESH_AXIS), P()
         ),
         out_specs=P(),
-        # the pallas grid's scalar-prefetch index maps mix loop indices
-        # with device-varying prefetch values, which jax's varying-mesh-
-        # axes tracking cannot type; jax's own error message prescribes
-        # disabling the check for this case
+        # pallas_call outputs carry no mesh-axis varying-ness, and the
+        # Pallas interpreter cannot type it either
         check_vma=(engine != "pallas"),
     )
     def sharded_counts(lane1, lane2, tile1, tile2, slots, table):
@@ -534,14 +502,14 @@ def _count_pairs_ring(
     step_of_pair = (owner2 - owner1) % num_devices  # met at this ring step
 
     # bucket pairs by (device, step); pad all buckets to a common chunked
-    # length with dump-slot entries (local tile 0 of whatever is resident)
+    # length with dump-slot entries (row tile -1, as in the other layouts)
     key = owner2 * num_devices + step_of_pair
     order = np.argsort(key, kind="stable")
     counts = np.bincount(key, minlength=num_devices * num_devices)
     longest = _pad_chunk_length(max(int(counts.max()), 1), chunk_size)
 
     shape = (num_devices, num_devices, longest)
-    tile1 = np.zeros(shape, dtype=np.int32)
+    tile1 = np.full(shape, -1, dtype=np.int32)
     tile2 = np.zeros(shape, dtype=np.int32)
     slots = np.full(shape, num_slots, dtype=np.int32)
     bounds = np.concatenate([[0], np.cumsum(counts)])
@@ -605,7 +573,7 @@ def _ring_counts_fn(
             P(MESH_AXIS), P(),
         ),
         out_specs=P(),
-        # see _sharded_counts_fn: prescribed workaround for pallas grids
+        # see _sharded_counts_fn
         check_vma=(engine != "pallas"),
     )
     def ring_counts(lane1, lane2, tile1, tile2, slots, table):
@@ -630,24 +598,17 @@ def _ring_counts_fn(
             resident = jax.lax.ppermute(resident, MESH_AXIS, perm)
             return (resident, acc), None
 
-        from yet_another_wizz_tpu.ops.pallas_paircount import (
-            _counting_width,
-        )
+        from yet_another_wizz_tpu.ops.gweight import counting_width
 
         init_acc = jnp.zeros(
             (
                 num_slots_out,
                 table.shape[0],
-                _counting_width(table.shape[1], direct),
+                counting_width(table.shape[1], direct),
             ),
             dtype=jnp.float32,
         )
-        if hasattr(jax.lax, "pcast"):
-            init_acc = jax.lax.pcast(
-                init_acc, to="varying", axis_name=MESH_AXIS
-            )
-        else:  # pragma: no cover - older jax
-            init_acc = jax.lax.pvary(init_acc, MESH_AXIS)
+        init_acc = jax.lax.pcast(init_acc, to="varying", axis_name=MESH_AXIS)
         # xs leading axis = ring steps; each step consumes a flat padded
         # pair list which _partial_counts chunks internally
         (_, acc), _ = jax.lax.scan(

@@ -7,7 +7,7 @@ logging, an iteration progress indicator with elapsed-time display, an
 exception hook that routes crashes through the logger, and a startup
 banner reporting version and execution environment.
 
-TPU addition: :func:`profile_trace` wraps a code region in a
+Device addition: :func:`profile_trace` wraps a code region in a
 ``jax.profiler`` trace for kernel-level performance analysis.
 """
 

@@ -13,7 +13,6 @@ from contextvars import ContextVar
 from typing import TYPE_CHECKING
 
 import numpy as np
-import yaml
 
 from yet_another_wizz_tpu._version import __version__
 
@@ -185,6 +184,8 @@ def format_time(elapsed: float) -> str:
 
 def write_yaml(data: dict, file: TextIOBase, **kwargs) -> None:
     """Serialise a dictionary to YAML with consistent defaults."""
+    import yaml
+
     kwargs.setdefault("default_flow_style", False)
     kwargs.setdefault("sort_keys", False)
     yaml.safe_dump(data, file, **kwargs)
